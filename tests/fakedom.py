@@ -341,15 +341,10 @@ class FakeBrowser:
     """All the globals app.js touches, plus a manual clock."""
 
     def __init__(self, session, index_html: str, media_paths=None):
-        from thesia_tpu.engine.service import (
-            AXIS_COMMANDS, BINARY_COMMANDS, COMMANDS, MISC_COMMANDS,
-            WRITE_COMMANDS, EngineService, _jsonable,
-        )
+        from thesia_tpu.engine.dispatch import Dispatcher, _jsonable
 
         self.session = session
-        self.service = EngineService(session)
-        self._tables = (COMMANDS, AXIS_COMMANDS, MISC_COMMANDS)
-        self._binary = BINARY_COMMANDS
+        self.dispatcher = Dispatcher(session)
         self._jsonable = _jsonable
         self.media_paths = [str(p) for p in (media_paths or [])]
         self.now_ms = 0.0
@@ -576,42 +571,11 @@ class FakeBrowser:
         return resp(False, 404, {"error": f"no route {url}"})
 
     def _dispatch(self, name, body, resp):
-        from thesia_tpu.engine.service import OPTIONAL_ARGS, WRITE_COMMANDS
-
-        spec = None
-        target = self.session
-        for table, tgt in zip(
-            self._tables, (self.session, self.service.axis, self.service.misc)
-        ):
-            if name in table:
-                spec = table[name]
-                target = tgt
-                break
-        if spec is None:
-            return resp(False, 404, {"error": f"unknown command {name}"})
-        method_name, arg_names = spec
-        args = []
-        for a in arg_names:
-            if a in body:
-                args.append(body[a])
-            elif a in OPTIONAL_ARGS:
-                args.append(None)
-            else:
-                return resp(False, 400, {"error": f"missing argument {a} for {name}"})
-        method = getattr(target, method_name)
-        try:
-            if target is self.session and name not in WRITE_COMMANDS:
-                with self.session.rw.read():
-                    result = method(*args)
-            else:
-                result = method(*args)
-        except (KeyError, ValueError, AssertionError) as e:
-            return resp(False, 400, {"error": str(e)})
-        except (TypeError, AttributeError) as e:
-            return resp(False, 400, {"error": f"invalid argument: {e}"})
-        if name in self._binary:
-            return resp(True, 200, raw=result)
-        return resp(True, 200, {"result": self._jsonable(result)})
+        reply = self.dispatcher.dispatch(name, body)
+        ok = reply.status == 200
+        if reply.content_type == "application/octet-stream":
+            return resp(ok, reply.status, raw=reply.body)
+        return resp(ok, reply.status, reply.json())
 
     # -- install into an interpreter -----------------------------------------
     def install(self, interp):

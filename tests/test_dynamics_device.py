@@ -13,10 +13,6 @@ from thesia_tpu.dynamics.stats import calc_stats
 from thesia_tpu.dynamics import stats_device
 
 
-pytestmark = pytest.mark.skipif(
-    not stats_device.device_dynamics_ok(), reason="backend lacks f64"
-)
-
 
 @pytest.mark.parametrize("sr", [8000, 44100, 48000])
 def test_limiter_gain_device_matches_streaming(sr):

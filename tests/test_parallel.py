@@ -2,7 +2,7 @@
 
 The sharded path under test is the PRODUCTION one: TrackManager ->
 SpectrogramAnalyzer.calc_specs_batched with an active "tracks" mesh
-(the TPU-native analogue of the reference's rayon per-(id,ch) fan-out,
+(the device analogue of the reference's rayon per-(id,ch) fan-out,
 reference: src-tauri/src/core/mod.rs:152-163).
 """
 
@@ -150,8 +150,8 @@ def test_freq_tp_wins_when_rows_lt_devices():
     (2 tracks x 4 freq) mesh instead splits each row's GEMM columns 4 ways —
     compiled per-device FLOPs must drop to ~1/4 of the DP program's (measured
     0.2515x; the extra ~0.15% is the mel-psum).  Evidence is taken from the
-    partitioned executables' cost analysis, so it holds identically for the
-    TPU backend's partitioner."""
+    partitioned executables' cost analysis (GSPMD's partitioning, the same
+    for every backend)."""
     setting = SpecSetting()
     sr = 8000
     hop, win, n_fft = setting.calc_framing_params(sr)

@@ -7,6 +7,7 @@ src-tauri/src/core/render_tiles.rs:408-546.
 import struct
 
 import numpy as np
+import pytest
 
 from thesia_tpu.render import (
     RenderTileCache,
@@ -177,6 +178,24 @@ def test_default_colormap():
     assert (cm[-1] == [255, 255, 255, 255]).all()
     # first inferno entry: [0.001462, 0.000466, 0.013866] * 255 rounded
     assert (cm[1] == [0, 0, 4, 255]).all()
+
+
+@pytest.mark.parametrize(
+    "index, rgb",
+    [(64, (85, 15, 109)), (128, (186, 54, 85)), (192, (249, 140, 10)), (256, (252, 255, 164))],
+)
+def test_default_colormap_inline_anchors(index, rgb):
+    """The inline inferno table keeps matplotlib's published values."""
+    cm = default_colormap_rgba8()
+    assert cm.dtype == np.uint8 and (cm[:, 3] == 255).all()
+    assert tuple(cm[index, :3]) == rgb
+
+
+def test_default_colormap_matches_matplotlib():
+    matplotlib = pytest.importorskip("matplotlib")
+    inferno = np.asarray(matplotlib.colormaps["inferno"].colors)
+    want = np.round(np.vstack([[0, 0, 0], inferno, [1, 1, 1]]) * 255).astype(np.uint8)
+    np.testing.assert_array_equal(default_colormap_rgba8()[:, :3], want)
 
 
 def test_quantize_min_value_half_away_from_zero():

@@ -4,7 +4,8 @@ import numpy as np
 import pytest
 from aiohttp.test_utils import TestClient, TestServer
 
-from thesia_tpu.engine.service import COMMANDS, EngineService
+from thesia_tpu.engine.dispatch import COMMANDS
+from thesia_tpu.engine.service import EngineService
 from thesia_tpu.engine.session import EngineSession
 from thesia_tpu.render import decode_waveform_tile, default_colormap_rgba8
 

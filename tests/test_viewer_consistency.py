@@ -64,7 +64,7 @@ def test_api_methods_defined():
 
 def test_posted_commands_are_registered():
     from thesia_tpu.engine.axis_api import AXIS_COMMANDS
-    from thesia_tpu.engine.service import COMMANDS, MISC_COMMANDS
+    from thesia_tpu.engine.dispatch import COMMANDS, MISC_COMMANDS
 
     registered = set(COMMANDS) | set(AXIS_COMMANDS) | set(MISC_COMMANDS)
     posted = set()

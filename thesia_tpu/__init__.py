@@ -1,10 +1,10 @@
-"""thesia_tpu — a TPU-native multi-track audio spectrogram/waveform engine.
+"""thesia_tpu — a multi-track audio spectrogram/waveform engine on JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of Sytronik/thesia
+A ground-up JAX/XLA rebuild of the capabilities of Sytronik/thesia
 (reference: a Tauri desktop app with a Rust DSP backend).  The compute core —
-STFT, mel projection, dB scaling, loudness stats, limiting, waveform
-decimation and spectrogram tile rasterization — runs batched on TPU; the
-runtime around it (track/session state, tile cache, service, decode) is host
+STFT, mel projection, dB scaling, loudness stats, limiting and u16 image
+quantization — runs batched on the accelerator (an NVIDIA GPU); the runtime
+around it (track/session state, tile encoding, service, decode) is host
 Python + native C++.
 
 Layout:

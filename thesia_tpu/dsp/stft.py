@@ -1,4 +1,4 @@
-"""Batched center-padded STFT, TPU-first.
+"""Batched center-padded STFT.
 
 Semantics match the reference STFT (reference:
 src-tauri/src/core/spectrogram/stft.rs:16-149):
@@ -12,11 +12,11 @@ src-tauri/src/core/spectrogram/stft.rs:16-149):
 
 The reference implements this with a 3-region (front/mid/back) frame loop +
 per-frame rustfft calls on a thread pool.  Here the whole thing is one fused
-XLA program: the real DFT is expressed as two MXU matmuls against
+XLA program: the real DFT is expressed as two matmuls against
 window-folded cosine/sine matrices of shape (win, n_freq) — zero-padding and
 windowing cost nothing because they are folded into the DFT matrix rows.
-This keeps all FLOPs on the systolic array and lets XLA fuse |.|, the mel
-GEMM and the dB conversion into the same pipeline (see spectrogram.py).
+XLA then fuses |.|, the mel GEMM and the dB conversion into the same
+pipeline (see spectrogram.py).
 """
 
 from __future__ import annotations

@@ -7,6 +7,7 @@ reference: src-tauri/src/core/track.rs.
 from __future__ import annotations
 
 import concurrent.futures
+import logging
 import os
 from pathlib import Path
 
@@ -18,6 +19,8 @@ from ..dsp.framing import SpecSetting, SrWinNfft
 from ..io.decode import AudioFormatInfo, open_audio_file
 from .audio import Audio
 from .utils import unique_filenames
+
+log = logging.getLogger(__name__)
 
 
 class AudioTrack:
@@ -278,11 +281,12 @@ class TrackList:
 
         items = [(i, t.original.wavs, t.sr) for i, t in enumerate(tracks)]
         stats = None
-        try:
-            with span("stats.batched"):
-                stats = stats_device.calc_stats_batched(items)
-        except Exception:
-            stats = None
+        if stats_device.device_dynamics_preferred():
+            try:
+                with span("stats.batched"):
+                    stats = stats_device.calc_stats_batched(items)
+            except Exception:
+                log.warning("device stats failed; using the host path", exc_info=True)
         if stats is not None:
             for i, t in enumerate(tracks):
                 t.original.stats = stats[i]
@@ -333,15 +337,15 @@ class TrackList:
                 track.apply_gain(gain, mode, gained=gained)
                 del gained
         gains = None
-        if plan:
-            from ..dynamics import stats_device
+        from ..dynamics import stats_device
 
+        if plan and stats_device.device_dynamics_preferred():
             try:
                 gains = stats_device.limiter_gain_seqs_batched(
                     [(i, g, t.sr) for i, (t, _gain, g) in enumerate(plan)]
                 )
             except Exception:
-                gains = None
+                log.warning("device limiter failed; using the native path", exc_info=True)
         if gains is not None:
             for i in range(len(plan)):
                 track, gain, gained = plan[i]

@@ -136,21 +136,31 @@ def decode_wav(data: bytes) -> tuple[np.ndarray, int, str]:
     return planar, sr, _codec_name(fmt_tag, bits)
 
 
+def _wav_bytes(fmt_tag: int, n_ch: int, sr: int, bits: int, payload: bytes) -> bytes:
+    block = n_ch * bits // 8
+    fmt = struct.pack("<HHIIHH", fmt_tag, n_ch, sr, sr * block, block, bits)
+    chunks = b"WAVE" + b"fmt " + struct.pack("<I", len(fmt)) + fmt
+    chunks += b"data" + struct.pack("<I", len(payload)) + payload
+    return b"RIFF" + struct.pack("<I", len(chunks)) + chunks
+
+
 def encode_wav_f32(wavs: np.ndarray, sr: int) -> bytes:
     """Planar f32 (n_ch, n) -> IEEE-float WAV bytes (for test fixtures)."""
-    n_ch, n = wavs.shape
+    n_ch, _n = wavs.shape
     interleaved = np.ascontiguousarray(wavs.T, np.float32).tobytes()
-    fmt = struct.pack("<HHIIHH", WAVE_FORMAT_IEEE_FLOAT, n_ch, sr, sr * n_ch * 4, n_ch * 4, 32)
-    chunks = b"WAVE" + b"fmt " + struct.pack("<I", len(fmt)) + fmt
-    chunks += b"data" + struct.pack("<I", len(interleaved)) + interleaved
-    return b"RIFF" + struct.pack("<I", len(chunks)) + chunks
+    return _wav_bytes(WAVE_FORMAT_IEEE_FLOAT, n_ch, sr, 32, interleaved)
 
 
 def encode_wav_s16(wavs: np.ndarray, sr: int) -> bytes:
-    n_ch, n = wavs.shape
+    n_ch, _n = wavs.shape
     ints = np.clip(np.round(wavs * 32768.0), -32768, 32767).astype("<i2")
     interleaved = np.ascontiguousarray(ints.T).tobytes()
-    fmt = struct.pack("<HHIIHH", WAVE_FORMAT_PCM, n_ch, sr, sr * n_ch * 2, n_ch * 2, 16)
-    chunks = b"WAVE" + b"fmt " + struct.pack("<I", len(fmt)) + fmt
-    chunks += b"data" + struct.pack("<I", len(interleaved)) + interleaved
-    return b"RIFF" + struct.pack("<I", len(chunks)) + chunks
+    return _wav_bytes(WAVE_FORMAT_PCM, n_ch, sr, 16, interleaved)
+
+
+def encode_wav_s24(wavs: np.ndarray, sr: int) -> bytes:
+    """Planar f32 (n_ch, n) -> packed 24-bit little-endian PCM WAV bytes."""
+    n_ch, _n = wavs.shape
+    ints = np.clip(np.round(wavs.T * 8388608.0), -8388608, 8388607).astype("<i4")
+    packed = np.ascontiguousarray(ints).view(np.uint8).reshape(-1, 4)[:, :3]
+    return _wav_bytes(WAVE_FORMAT_PCM, n_ch, sr, 24, packed.tobytes())

@@ -19,15 +19,22 @@ _tried = False
 
 
 def _build() -> bool:
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = [
-        "g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-o", _SO, _SRC,
+        "g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-o", tmp, _SRC,
         "-lavformat", "-lavcodec", "-lavutil",
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=300)
+        # atomic: concurrent processes (test workers) may build at once,
+        # and none may load a half-written library
+        os.replace(tmp, _SO)
         return True
     except Exception:
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _load():

@@ -3,8 +3,8 @@
 //
 // These are the host-side hot paths that the reference implements in Rust
 // (reference: src-tauri/src/core/render_tiles.rs, dynamics/limiter.rs,
-// dynamics/envelope.rs; decode via the symphonia crate).  The TPU handles the
-// batched DSP; this library handles latency-critical per-request encoding and
+// dynamics/envelope.rs; decode via the symphonia crate).  The accelerator
+// handles the batched DSP; this library handles latency-critical per-request encoding and
 // bit-exact sequential recurrences.
 
 #include <algorithm>

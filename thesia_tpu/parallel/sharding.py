@@ -18,7 +18,7 @@ reference: src-tauri/src/core/mod.rs:152-163) are:
     (one long stereo track = 2 rows; rows-only DP would idle n-2 chips).
   * "freq": columns of the DFT matrices and rows of the mel filterbank —
     tensor-parallel GEMMs.  The mel GEMM contracts over the sharded freq
-    axis, so GSPMD inserts a psum over the "freq" axis — riding ICI.
+    axis, so GSPMD inserts a psum over the "freq" axis.
     Freq parallelism changes the mel reduction order (sum of partial sums),
     so it is opt-in; the engine default is rows-only sharding, which is
     bit-exact vs single-device.

@@ -72,7 +72,7 @@ def convert_spectrogram_to_img_device(
     db_range: tuple[float, float],
     colormap_length: int | None,
 ) -> jnp.ndarray:
-    """Device version (jnp), same semantics; spec stays HBM-resident."""
+    """Device version (jnp), same semantics; spec stays device-resident."""
     i_start, i_end = i_freq_range
     height = i_end - i_start
     width = spec.shape[0]
